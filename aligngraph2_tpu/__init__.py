@@ -1,6 +1,6 @@
-"""aligngraph2_tpu — a TPU-native similar-genome-assisted reassembly framework.
+"""aligngraph2_tpu — a JAX similar-genome-assisted reassembly framework.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of AlignGraph2
+A from-scratch JAX/XLA/CUDA re-design of the capabilities of AlignGraph2
 (reference: Godotcoffee/AlignGraph2): given PacBio long reads, draft contigs,
 and a published genome of a similar species, extend and refine the contigs.
 
@@ -8,9 +8,9 @@ Layer map (see SURVEY.md for the reference analysis this was built against):
 
   cli / pipeline   -- stage DAG with content-addressed caching
                       (replaces AlignGraph2.py + script/saved_helper.py)
-  align / ops      -- seed-extend long-read aligner as batched XLA/Pallas
-                      kernels (replaces the external mecat2ref / mecat2ref+ /
-                      nucmer binaries)
+  align / ops      -- seed-extend long-read aligner: host seeding, a CUDA
+                      extension kernel on the GPU (replaces the external
+                      mecat2ref / mecat2ref+ / nucmer binaries)
   graph / traverse -- positional A-Bruijn graph as structure-of-arrays with
                       sort/segment-reduce merges + greedy traversal
                       (replaces PAGraph/src/tools/{graph,position,node})
@@ -19,7 +19,7 @@ Layer map (see SURVEY.md for the reference analysis this was built against):
   io / coords      -- sequence databases, 2-bit codes, flat coordinate algebra
                       (replaces PAGraph/src/tools/{seq,kmer,align} data model)
   parallel         -- jax.sharding mesh; genome-block-sharded index; reads
-                      data-parallel; collective merges over ICI
+                      data-parallel; collective merges across devices
 """
 
 __version__ = "0.1.0"

@@ -27,7 +27,7 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="aligngraph2_tpu",
         description="Similar genome assisted reassembly pipeline for "
-                    "PacBio long reads (TPU-native)",
+                    "PacBio long reads",
         formatter_class=argparse.ArgumentDefaultsHelpFormatter)
     p.add_argument("--version", action="version", version="%(prog)s 0.1")
     p.add_argument("-r", "--read", metavar="[fastq]", required=True,

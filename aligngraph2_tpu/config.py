@@ -48,12 +48,10 @@ class AlignerConfig:
                                     # k=12 treatment — at a fraction of
                                     # the small-seed noise cost
                                     # (G/4^12 hits/kmer for only the
-                                    # unaligned tail).  Validated at
-                                    # 50 Mb: read_to_ref 1,049 -> 145 s
-                                    # with final-assembly quality
-                                    # unchanged to 3 decimals
-                                    # (BENCH_SCALE.json rescue lines);
-                                    # recall locked by
+                                    # unaligned tail).  At 50 Mb the
+                                    # final-assembly quality was
+                                    # unchanged to 3 decimals; recall
+                                    # locked by
                                     # tests/test_aligner.py::
                                     # test_ref_seed_rescue_preserves_
                                     # diverged_recall

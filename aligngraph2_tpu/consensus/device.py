@@ -10,7 +10,7 @@ theory and its oracle-parity proof):
      + per-occurrence insert-chain records (anchors, packed bases,
      creation/first-touch times).  numpy spec here; production C++ in
      native/poacns.cpp (agp_encode_windows).
-  2. aggregate (THIS IS THE TPU PART) — one jit over the column stream
+  2. aggregate (the accelerator part) — one jit over the column stream
      computes backbone weight/coverage segment sums, match-anchored
      edge tables (dense (window, u, gap) keys with first-touch mins;
      gap >= GAP_SLOTS falls back to a host patch via a count-gated

@@ -17,7 +17,7 @@ disabled).
 
 All device dtypes are 32-bit native (int32 node ids, uint32 coordinates)
 — no packed 64-bit keys, so the kernels are correct with JAX's default
-x64-disabled config and map directly onto the VPU's 32-bit lanes.
+x64-disabled config.
 
 Padding: inputs are padded to power-of-two buckets so recompiles are
 O(log N) over a run; pad slots carry sentinel keys that sort after all
@@ -86,8 +86,8 @@ def merge_positions_device(pos_node: np.ndarray, pos_ctg: np.ndarray,
                            ) -> Optional[Tuple[np.ndarray, np.ndarray,
                                                np.ndarray, np.ndarray]]:
     """Cluster positions on the accelerator.  Returns (node, ctg, ref,
-    count) in the spec's sorted order, or None when the device path is
-    unavailable (caller falls back)."""
+    count) in the spec's sorted order, or None when a field is out of
+    the kernel's 32-bit range (the caller then takes the native core)."""
     n = len(pos_node)
     if n == 0 or int(pos_node.max()) >= np.iinfo(np.int32).max:
         return None
@@ -106,13 +106,10 @@ def merge_positions_device(pos_node: np.ndarray, pos_ctg: np.ndarray,
     ref[:n] = pos_ref.astype(np.uint32)
     cnt = np.zeros(cap, np.int32)
     cnt[:n] = np.minimum(pos_count, 0xFFFF).astype(np.int32)
-    try:
-        snode, sctg, sref, scnt, boundary = [
-            np.asarray(a)[:n] for a in _merge_pos_kernel(
-                jnp.asarray(node), jnp.asarray(ctg), jnp.asarray(ref),
-                jnp.asarray(cnt), jnp.uint32(epsilon))]
-    except Exception:
-        return None
+    snode, sctg, sref, scnt, boundary = [
+        np.asarray(a)[:n] for a in _merge_pos_kernel(
+            jnp.asarray(node), jnp.asarray(ctg), jnp.asarray(ref),
+            jnp.asarray(cnt), jnp.uint32(epsilon))]
     firsts = np.flatnonzero(boundary)
     # exact per-cluster count sums via host cumsum (uint16 saturation)
     csum = np.concatenate([[0], np.cumsum(scnt, dtype=np.int64)])
@@ -145,12 +142,9 @@ def merge_edges_device(edge_from: np.ndarray, edge_to: np.ndarray,
     to[:n] = edge_to
     step = np.full(cap, hi, np.int32)
     step[:n] = edge_step
-    try:
-        sf, st, ss, boundary = [
-            np.asarray(a)[:n] for a in _merge_edge_kernel(
-                jnp.asarray(frm), jnp.asarray(to), jnp.asarray(step))]
-    except Exception:
-        return None
+    sf, st, ss, boundary = [
+        np.asarray(a)[:n] for a in _merge_edge_kernel(
+            jnp.asarray(frm), jnp.asarray(to), jnp.asarray(step))]
     keep = np.flatnonzero(boundary)
     return (sf[keep].astype(np.int32), st[keep].astype(np.int32),
             ss[keep].astype(np.int32))

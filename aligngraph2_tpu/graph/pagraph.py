@@ -316,8 +316,8 @@ class PAGraph:
         """Production merge dispatch: 'native' (C++ core), 'device'
         (XLA sort/segment kernels, graph/merge_device.py), or 'numpy'
         (the in-file specification).  Default 'auto': one-shot link
-        probe picks device on directly-attached hosts, native behind
-        slow relays (utils/devprobe.py)."""
+        probe picks device on directly attached GPUs, native where the
+        link is slow (utils/devprobe.py)."""
         from ..utils.devprobe import resolve_backend
         return resolve_backend("ALIGNGRAPH2_TPU_MERGE")
 

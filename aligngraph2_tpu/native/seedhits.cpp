@@ -499,8 +499,7 @@ void ags_bin_free(int32_t* tid, uint8_t* fwd, int64_t* diag,
 }
 
 // Stable LSD radix co-sort of (codes, pos) by code — the SeedIndex
-// build's np.argsort replacement (25-55 s for a 50 Mb genome at
-// 2 vCPUs; this is ~2 s).  Codes must be < 2^32 (k <= 16).  Stability
+// build's np.argsort replacement.  Codes must be < 2^32 (k <= 16).  Stability
 // matters: sorted_pos order within equal codes is part of the index's
 // observable contract (hit emission order).
 int64_t agr_sort_codes(int64_t* codes, int64_t* pos, int64_t n) {
@@ -558,10 +557,9 @@ int64_t ags_stride_sample(const int64_t* eligible, int64_t n,
     return n_sel;
 }
 
-// Traceback run-length expansion (ops/banded_pallas.expand_packed_moves
-// is the numpy specification; this is the production path — the numpy
-// expansion of a 1024-lane batch costs ~160 ms on a 2-vCPU host, ~40%
-// of the whole DP+traceback wall).  Per lane b, the device walk emitted
+// Traceback run-length expansion (ops/extend.expand_packed_moves is the
+// numpy specification; this is the production path).  Per lane b, the
+// device walk emitted
 // per-iteration codes: runs[b,it] DIAG moves then mvs[b,it] (if
 // nonzero); expand into the dense END->START move matrix truncated at
 // max_steps, and derive (n_moves, start_i, start_j) from the truncated

@@ -6,18 +6,19 @@ reference's external ``mecat2ref``/``mecat2ref+``/``nucmer`` binaries
 kernel is built from the observable contract: local alignments of noisy
 long reads against a target, reported as scored gapped alignments).
 
-Design (TPU-first):
+Design (plain JAX; the adaptive-band path for reads past the static
+buckets and for the multi-device mesh, parallel/sharded.py):
   * The DP matrix is never materialized.  A ``lax.scan`` walks query rows;
-    each step holds one band of W cells (W = 128..512, a multiple of the
-    VPU lane width), so all row math is dense (W,)-vector work on the VPU.
+    each step holds one band of W cells (W = 128..512), so all row math
+    is dense (W,)-vector work.
   * The band is *adaptive*: its center diagonal drifts by at most +-1 per
     row toward the current row argmax, letting the band follow indel drift
     far beyond W/2 without widening.
   * Within-row gap chains (query gaps) are resolved with a Kogge-Stone
     max-plus scan: log2(W) shift+max steps instead of a serial pass.
-  * Direction bits (2 per cell) and per-row band centers are emitted to
-    HBM; a second batched ``lax.scan`` walks the traceback entirely on
-    device, so hosts only receive compact move strings.
+  * Direction codes (one byte per cell) and per-row band centers stay in
+    device memory; a second batched ``lax.scan`` walks the traceback
+    entirely on device, so hosts only receive compact move strings.
 
 Scoring: Smith-Waterman local with linear gaps (match/mismatch/gap from
 AlignerConfig).  Scores are int32.
@@ -36,6 +37,30 @@ NEG = jnp.int32(-(1 << 28))
 
 # direction codes
 STOP, DIAG, UP, LEFT = 0, 1, 2, 3
+
+# lanes of one batch on a GPU: the per-row while loop costs about the
+# same at any width, so a batch is as wide as memory allows up to this
+SCAN_MAX_LANES = 512
+
+
+def scan_lanes(NQ: int, NT: int, W: int, device=None) -> int:
+    """Lanes of one banded_align + traceback batch.  On the CPU, 64 MB
+    of direction bytes (at most 64 lanes); on a GPU, one batch in a
+    sixteenth of the memory the device reports, and an error on a
+    device that reports none or is too small for one lane."""
+    device = device or jax.devices()[0]
+    if device.platform == "cpu":
+        return max(1, min(64, (64 << 20) // (NQ * W)))
+    stats = device.memory_stats() or {}
+    if "bytes_limit" not in stats:
+        raise RuntimeError(f"{device} reports no memory limit")
+    # dirs, centers, moves, query, window
+    per_lane = NQ * W + 4 * (NQ + 1) + (NQ + NT) + NQ + NT
+    n = min(SCAN_MAX_LANES, stats["bytes_limit"] // 16 // per_lane)
+    if n < 1:
+        raise RuntimeError(f"one lane at NQ={NQ}, W={W} does not fit in "
+                           f"{stats['bytes_limit']} bytes")
+    return n
 
 
 class BandedResult(NamedTuple):

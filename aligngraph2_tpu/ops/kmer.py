@@ -224,10 +224,9 @@ def count_reads_sorted(db, k: int, chunk_bases: int = 256_000_000,
                        ids: np.ndarray | None = None) -> SparseCounts:
     """Sort-based host counter — the scalable path.
 
-    The dense device scatter-add degrades badly at k=14 (a 268M-entry
-    table makes each scatter serialize); sorting the code stream and
-    segment-counting is O(n log n) with perfect locality and needs no
-    device round-trips.  Chunks are merged by concatenating (code, count)
+    The dense device scatter-add needs a 268M-entry table at k=14;
+    sorting the code stream and segment-counting is O(n log n) with
+    perfect locality and needs no device round-trips.  Chunks are merged by concatenating (code, count)
     pairs and re-reducing."""
     acc_codes = np.zeros(0, np.int64)
     acc_counts = np.zeros(0, np.int64)

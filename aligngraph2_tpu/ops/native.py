@@ -129,7 +129,7 @@ def expand_moves_native(runs: np.ndarray, mvs: np.ndarray, it_count: int,
                         best_i: np.ndarray, best_j: np.ndarray,
                         max_steps: int):
     """Native traceback run-length expansion (spec + fallback:
-    ops/banded_pallas.expand_packed_moves); None -> caller uses numpy."""
+    ops/extend.expand_packed_moves); None -> caller uses numpy."""
     lib = get_lib()
     if lib is None:
         return None

@@ -1,8 +1,8 @@
 """Multi-host orchestration: jax.distributed init + host-level data
 sharding.
 
-The reference is single-node (SURVEY.md §2.6 — std::thread only); the
-TPU-native scaling model adds a host dimension (SURVEY.md §5
+The reference is single-node (SURVEY.md §2.6 — std::thread only); this
+scaling model adds a host dimension (SURVEY.md §5
 "Distributed communication backend"):
 
   * every host calls :func:`init_distributed` once (coordinator
@@ -13,7 +13,7 @@ TPU-native scaling model adds a host dimension (SURVEY.md §5
     the reference's per-group directory splitting);
   * per-host alignment/graph partials are merged with the collective
     helpers in parallel/sharded.py (all_gather/psum over the global
-    mesh, ICI within a host, DCN across hosts).
+    mesh).
 
 Single-host runs skip all of this: every helper degrades to a no-op
 when jax.process_count() == 1.
@@ -34,8 +34,9 @@ def init_distributed(coordinator_address: Optional[str] = None,
                      ) -> int:
     """Initialize jax.distributed (idempotent; no-op if single-host).
 
-    With no arguments JAX auto-detects cluster environments (GKE/GCE TPU
-    pods, SLURM, Open MPI).  Returns the process id.
+    With no arguments JAX auto-detects the cluster environments it
+    knows (SLURM, Open MPI); elsewhere pass coordinator_address,
+    num_processes and process_id.  Returns the process id.
 
     The two timeout knobs guard against peer eviction under host
     oversubscription: JAX's defaults (300 s init, 100 s heartbeat) evict
@@ -149,8 +150,8 @@ def merge_host_counts(local_codes: np.ndarray, local_counts: np.ndarray,
     Dense path (4^k <= dense_max): each host scatters its counts into a
     dense table, contributes it as one row of a device-global array
     (zero rows for its other local devices), and a device reduction over
-    the host axis sums the tables — the collective rides ICI/DCN, not
-    the host network.  Sparse path (k = 14 production default is 1 GB
+    the host axis sums the tables — the collective rides the device
+    interconnect, not the host network.  Sparse path (k = 14 production default is 1 GB
     dense, so this is the real path): (codes, counts) blobs gathered via
     :func:`gather_host_bytes` and merged on every host."""
     import jax

@@ -1,14 +1,14 @@
 """Device mesh construction.
 
-The reference is single-node shared-memory threading (SURVEY.md §2.6); the
-TPU-native scaling model replaces it with a 2-D ``jax.sharding.Mesh``:
+The reference is single-node shared-memory threading (SURVEY.md §2.6); here
+a 2-D ``jax.sharding.Mesh`` replaces it:
 
   * ``data``  — reads are data-parallel across this axis (the analogue of
     the reference's thread-striped read loops, Aligner.tcc:28-29);
   * ``block`` — the similar-genome seeding index is sharded by genome
     block across this axis (the analogue of mecat2ref+'s genome block
     decomposition, README.md:43-51), with candidate scores merged by
-    all-gather over ICI.
+    all-gather across devices.
 """
 
 from __future__ import annotations

@@ -2,8 +2,8 @@
 data-parallel banded extension over the (data, block) device mesh.
 
 This is the multi-device path of ``LongReadAligner.align_reads`` (the
-single-device path keeps the host seeding + Pallas extension).  It is the
-TPU-native replacement for the reference's only scaling mechanisms —
+single-device path keeps the host seeding + the static-band extension of
+ops/extend.py).  It replaces the reference's only scaling mechanisms —
 thread-striped read loops (Aligner.tcc:28-29 via MultiThreadTools.tcc:12)
 and mecat2ref+'s genome block decomposition (README.md:43-51):
 

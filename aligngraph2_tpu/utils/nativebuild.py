@@ -28,27 +28,33 @@ def _src_hash(src: str, flags: Sequence[str]) -> str:
 def ensure_lib(src: str, so: str, flags: Sequence[str],
                timeout: float = 300.0) -> bool:
     """True iff ``so`` exists and was built from the current content of
-    ``src`` with ``flags``; rebuilds when the sidecar hash mismatches."""
+    ``src`` with ``flags``; rebuilds when the sidecar hash mismatches.
+    False when the build fails (callers then use their Python spec)."""
     try:
-        want = _src_hash(src, flags)
-    except OSError:
+        build_lib(src, so, flags, timeout=timeout)
+        return True
+    except (OSError, RuntimeError, subprocess.TimeoutExpired):
         return False
+
+
+def build_lib(src: str, so: str, flags: Sequence[str],
+              compiler: str = "g++", timeout: float = 300.0) -> None:
+    """Build ``so`` from ``src`` unless the sidecar says it is current.
+    Raises RuntimeError with the compiler's output when the build
+    fails."""
+    want = _src_hash(src, [compiler, *flags])
     sidecar = so + ".srchash"
     try:
         if os.path.exists(so):
             with open(sidecar) as f:
                 if f.read().strip() == want:
-                    return True
+                    return
     except OSError:
         pass
-    try:
-        res = subprocess.run(
-            ["g++", *flags, src, "-o", so],
-            capture_output=True, timeout=timeout)
-        if res.returncode != 0:
-            return False
-        with open(sidecar, "w") as f:
-            f.write(want + "\n")
-        return True
-    except (OSError, subprocess.TimeoutExpired):
-        return False
+    res = subprocess.run([compiler, *flags, src, "-o", so],
+                         capture_output=True, text=True, timeout=timeout)
+    if res.returncode != 0:
+        raise RuntimeError(f"{compiler} failed on {src}:\n"
+                           f"{res.stdout}{res.stderr}")
+    with open(sidecar, "w") as f:
+        f.write(want + "\n")

@@ -162,41 +162,29 @@ def test_read_ref_nine_field_mummer_variant(tmp_path):
     assert (ten.qsize, ten.rsize) == (40, 5000)
 
 
-def test_pallas_failure_degrades_to_scan(dataset, monkeypatch, caplog):
-    """A pallas dispatch failure mid-stage must degrade to the scan
-    extension path with a logged warning, not kill the stage — the
-    pipeline analogue of the reference's aligner-fallback chain
-    (/root/reference/AlignGraph2.py:288-296)."""
-    import logging
-    reads = SeqDatabase(dataset["reads"])
+def test_kernel_failure_propagates(dataset, monkeypatch):
+    """A failing extension raises out of the stage: there is no slower
+    path to fall back to without saying so."""
+    from aligngraph2_tpu.ops import extend
+    reads = SeqDatabase(dataset["reads"][:4])
     genome = SeqDatabase([("g", dataset["genome"])])
-    want = LongReadAligner(genome, small_cfg(),
-                           use_pallas=False).align_reads(reads)
 
     def boom(*a, **k):
-        raise RuntimeError("injected pallas failure")
+        raise RuntimeError("injected kernel failure")
 
-    aligner = LongReadAligner(genome, small_cfg(), use_pallas=True)
-    monkeypatch.setattr(aligner, "_dispatch_pallas", boom)
-    with caplog.at_level(logging.WARNING, "aligngraph2_tpu.align"):
-        got = aligner.align_reads(reads)
-    assert aligner.use_pallas is False
-    assert "degrading to the scan extension path" in caplog.text
-    key = lambda a: (a.query_name, a.ref_name, a.forward, a.rb, a.re,
-                     a.score)
-    assert sorted(map(key, got)) == sorted(map(key, want))
+    monkeypatch.setattr(extend, "extension_impl",
+                        lambda platform=None: ("kernel", boom))
+    with pytest.raises(RuntimeError, match="injected kernel failure"):
+        LongReadAligner(genome, small_cfg()).align_reads(reads)
 
 
-def test_sharded_failure_degrades_to_single_device(dataset, monkeypatch,
-                                                   caplog):
-    """A mesh-path failure must fall back to the single-device path."""
-    import logging
+def test_mesh_failure_propagates(dataset, monkeypatch):
+    """A mesh-path failure raises; it never turns a multi-device run into
+    a single-device one."""
     import jax
-    from jax.sharding import Mesh
     from aligngraph2_tpu.parallel.mesh import make_mesh
-    reads = SeqDatabase(dataset["reads"])
+    reads = SeqDatabase(dataset["reads"][:4])
     genome = SeqDatabase([("g", dataset["genome"])])
-    want = LongReadAligner(genome, small_cfg()).align_reads(reads)
     mesh = make_mesh(min(2, len(jax.devices())), block_parallel=1)
     aligner = LongReadAligner(genome, small_cfg(), mesh=mesh)
 
@@ -204,13 +192,9 @@ def test_sharded_failure_degrades_to_single_device(dataset, monkeypatch,
         raise RuntimeError("injected mesh failure")
 
     monkeypatch.setattr(LongReadAligner, "_ensure_sharded_index", boom)
-    with caplog.at_level(logging.WARNING, "aligngraph2_tpu.align"):
-        got = aligner.align_reads(reads)
-    assert aligner.mesh is None
-    assert "falling back to the single-device path" in caplog.text
-    key = lambda a: (a.query_name, a.ref_name, a.forward, a.rb, a.re,
-                     a.score)
-    assert sorted(map(key, got)) == sorted(map(key, want))
+    with pytest.raises(RuntimeError, match="injected mesh failure"):
+        aligner.align_reads(reads)
+    assert aligner.mesh is mesh
 
 
 def test_clamped_score_prune_semantics():

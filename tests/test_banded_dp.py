@@ -197,3 +197,32 @@ def test_xdrop_kills_noise_lane_early_and_keeps_prefix_best(rng):
     xd = banded_align(q, qlen, t, tlen, c0, W=W, x_drop=100)
     assert int(xd.score[0]) == int(full.score[0]) == 300
     assert int(xd.best_i[0]) == int(full.best_i[0]) == 150
+
+
+class _FakeGpu:
+    platform = "gpu"
+
+    def __init__(self, stats):
+        self.stats = stats
+
+    def memory_stats(self):
+        return self.stats
+
+
+def test_scan_lanes_by_device():
+    """CPU batches keep the 64 MB direction budget; a GPU's come from
+    the memory it reports, capped, and no floor overrides the budget."""
+    import jax
+    from aligngraph2_tpu.ops.banded_dp import SCAN_MAX_LANES, scan_lanes
+    cpu = jax.devices()[0]
+    assert scan_lanes(8192, 8704, 256, cpu) == 32
+    assert scan_lanes(131072, 131584, 256, cpu) == 2
+    big = _FakeGpu({"bytes_limit": 60 << 30})
+    assert scan_lanes(8192, 8704, 256, big) == SCAN_MAX_LANES
+    small = _FakeGpu({"bytes_limit": 1 << 30})
+    n = scan_lanes(65536, 66048, 256, small)
+    assert 1 <= n < SCAN_MAX_LANES
+    assert n * 65536 * 256 <= (1 << 30) // 16
+    for stats in (None, {}, {"bytes_limit": 1 << 20}):
+        with pytest.raises(RuntimeError):
+            scan_lanes(65536, 66048, 256, _FakeGpu(stats))

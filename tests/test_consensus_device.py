@@ -6,7 +6,7 @@ Two layers of parity:
      sums, edge dict incl. first-touch times, chain groups).
   2. the full device pipeline's consensus strings must equal the
      sequential AlnGraph oracle.
-Runs on the CPU backend per conftest; the same jits run on TPU in
+Runs on the CPU backend per conftest; the same jits run on the GPU in
 production.
 """
 

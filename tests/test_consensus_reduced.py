@@ -1,4 +1,4 @@
-"""Reduced-graph consensus (the TPU-path specification) vs the
+"""Reduced-graph consensus (the device-path specification) vs the
 sequential AlnGraph oracle — must be bit-identical on every window.
 
 The reduced path's claim: identical insert chains between the same

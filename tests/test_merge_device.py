@@ -4,7 +4,7 @@ The device path (graph/merge_device.py) must produce bit-identical graph
 state to PAGraph's in-file numpy spec for both merge phases — epsilon
 position clustering (PABruijnGraph.cpp:259-274 semantics, deterministic
 chain-cluster variant) and exact edge dedup (PABruijnGraph.cpp:285-297).
-Runs on the CPU backend per conftest; the same jit runs on TPU in
+Runs on the CPU backend per conftest; the same jit runs on the GPU in
 production.
 """
 
